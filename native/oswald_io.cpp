@@ -3,7 +3,7 @@
 // Native replacement for the hot host-side data path, mirroring the role of
 // the reference's C host data layer (/root/reference/host/src/sequences.c:
 // preprocess_db :4-220, load_query_sequences :223-391) and its vendored
-// C++ utility layer (common/src/AOCL_Utils.cpp).  The TPU compute path is
+// C++ utility layer (common/src/AOCL_Utils.cpp).  The device compute path is
 // JAX/Pallas; this library feeds it:
 //
 //   - oswald_fasta_scan:   single pass over a FASTA buffer -> record count,

@@ -1,14 +1,15 @@
-"""oswald-tpu: a TPU-native Smith-Waterman protein database-search engine.
+"""oswald-tpu: a Smith-Waterman protein database-search engine for GPUs.
 
 A from-scratch JAX/XLA/Pallas implementation with the capabilities of the
 reference OSWALD engine (score-only affine-gap Smith-Waterman database
-search, CPU+FPGA hybrid), re-designed TPU-first:
+search, CPU+FPGA hybrid):
 
-- inter-sequence data parallelism on the VPU lane grid (Pallas kernel),
-  replacing the reference's SSE/AVX2 lanes and FPGA char16 pipeline
+- inter-sequence data parallelism, one GPU thread per database sequence
+  (a Pallas kernel compiled through Triton), replacing the reference's
+  SSE/AVX2 lanes and FPGA char16 pipeline
 - length-binned, fixed-shape database packing, replacing dynamic chunking
 - int32 exact arithmetic, replacing the 8/16/32-bit overflow-rescue ladder
-- pod-scale sharding via jax.sharding.Mesh + shard_map with a collective
+- multi-device sharding via jax.sharding.Mesh + shard_map with a collective
   top-k merge, replacing the multi-FPGA round-robin chunk scheduler and the
   host/FPGA calibration balancer
 """

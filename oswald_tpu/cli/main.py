@@ -6,7 +6,7 @@ single-letter search flags (-q -d -s -g -e -r) with the same defaults and
 the same report fields (per-query top-k table, search time, GCUPS;
 FPGAsearch.c:311-331).  Device-specific reference flags (-m execution mode,
 -v vector length, -f num FPGAs, -k chunk size, -p calibration percentage,
--b block width, -c threads) have no TPU meaning and are replaced by
+-b block width, -c threads) have no meaning here and are replaced by
 `--devices` (mesh size) and the engine tuning flags.
 """
 
@@ -49,13 +49,14 @@ def _add_engine_args(sp):
                          "1 = single-chip engine)")
     sp.add_argument("--distributed", action="store_true",
                     help="multi-host run: initialize jax.distributed "
-                         "before building the mesh (Cloud TPU pods "
-                         "auto-discover the coordinator; every pod host "
-                         "runs the same command, rank 0 prints)")
+                         "(cluster auto-discovery, e.g. SLURM or Open MPI) "
+                         "before building the mesh; one process per host "
+                         "drives all of that host's GPUs, every host runs "
+                         "the same command, rank 0 prints")
     sp.add_argument("--profile-mode",
                     choices=("auto", "precompute", "stream", "host_stream"),
                     default="auto",
-                    help="device data mode (default: auto — the HBM "
+                    help="device data mode (default: auto — the device "
                          "capacity planner picks the fastest mode that "
                          "fits; host_stream handles databases larger than "
                          "device memory)")
@@ -67,13 +68,17 @@ def _add_engine_args(sp):
                          "the reference's own cap); the memory planner "
                          "budgets worst-case scan state for it, so "
                          "lowering it lets larger databases stay fully "
-                         "HBM-resident; longer queries are rejected")
+                         "resident on the device; longer queries are "
+                         "rejected")
     _add_cache_args(sp)
-    sp.add_argument("--u-rows", type=int, default=8)
-    sp.add_argument("--group-block", type=int, default=2)
-    sp.add_argument("--col-unroll", type=int, default=32,
-                    help="DP columns per kernel loop iteration (kernel "
+    sp.add_argument("--u-rows", type=int, default=8,
+                    help="query rows per thread per kernel step (kernel "
                          "geometry; see `oswald-tpu tune`)")
+    sp.add_argument("--group-block", type=int, default=1,
+                    help="groups whose lanes one thread advances in "
+                         "lockstep (a power of two)")
+    sp.add_argument("--col-unroll", type=int, default=1,
+                    help="DP columns per kernel loop iteration")
     sp.add_argument("--stream-window", type=int, default=4,
                     help="pipelined-stream readback window: queries whose "
                          "packed outputs share one device->host transfer "
@@ -82,21 +87,24 @@ def _add_engine_args(sp):
 
 
 def _add_cache_args(sp):
-    """Persistent compiled-program cache flags (the TPU analog of the
+    """Persistent compiled-program cache flags (the analog of the
     reference loading its precompiled sw.aocx, utils.c:144-150)."""
     sp.add_argument("--compile-cache", metavar="DIR", default=None,
                     help="persistent compiled-program cache directory "
-                         "(default: ~/.cache/oswald-tpu/xla or "
-                         "$OSWALD_TPU_COMPILE_CACHE); compiled XLA "
-                         "programs are reused across processes, so a "
-                         "warmed deployment restarts in seconds instead "
-                         "of recompiling for minutes")
+                         "(default: <repo>/.jax_cache); compiled programs "
+                         "are reused across processes, so a warmed "
+                         "deployment restarts without recompiling.  "
+                         "Ignored when JAX_COMPILATION_CACHE_DIR is set: "
+                         "that directory is used")
     sp.add_argument("--no-compile-cache", action="store_true",
-                    help="disable the persistent compile cache")
+                    help="disable the persistent compile cache (ignored "
+                         "when JAX_COMPILATION_CACHE_DIR is set)")
 
 
 def _enable_cache(args):
-    if getattr(args, "no_compile_cache", False):
+    import os
+    if getattr(args, "no_compile_cache", False) and \
+            not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return None
     from oswald_tpu.utils.compile_cache import enable_compile_cache
     return enable_compile_cache(getattr(args, "compile_cache", None))
@@ -137,7 +145,7 @@ def _add_search_args(sp):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="oswald-tpu",
-        description="TPU-native Smith-Waterman protein database search")
+        description="Smith-Waterman protein database search on GPUs")
     sub = p.add_subparsers(dest="op", required=True)
 
     pp = sub.add_parser("preprocess", help="FASTA -> packed database")
@@ -176,19 +184,16 @@ def build_parser():
                          "length before accepting requests (0 = skip; "
                          "default: 512)")
     sv.add_argument("--warmup-jobs", type=int, default=1,
-                    help="parallel warmup steps (1 = serial, the "
-                         "measured best through a remote compile "
-                         "service — see warmup_engine; raise only where "
-                         "XLA compiles are local CPU work)")
+                    help="parallel warmup steps (default 1 = serial; "
+                         "see warmup_engine)")
 
-    sub.add_parser("info", help="TPU device information")
+    sub.add_parser("info", help="device information")
 
     tn = sub.add_parser(
         "tune",
-        help="measure kernel-geometry candidates on the attached device "
+        help="measure kernel-geometry candidates on the attached GPU "
              "and print the fastest --u-rows/--group-block/--col-unroll "
-             "flags (defaults are the v5e optimum; run once per new TPU "
-             "generation)")
+             "flags (run once per card model)")
     tn.add_argument("--m", type=int, default=512,
                     help="query rows of the synthetic workload")
     tn.add_argument("--groups", type=int, default=24)
@@ -438,7 +443,7 @@ def cmd_search(args):
     print(f"Search time:\t\t\t{search_s:.4f} seconds")
     print(f"Search speed:\t\t\t{gcups:.2f} GCUPS")
     print(f"Devices:\t\t\t{n_dev} ({jax.default_backend()})")
-    print(f"Group lanes:\t\t\t1024 (8x128 VPU tile)")
+    print(f"Group lanes:\t\t\t1024 (8x128, one GPU thread per sequence)")
     if args.metrics:
         print("\nPhase timings:")
         print(engine.metrics.report())
@@ -456,7 +461,7 @@ def cmd_info(args):
         line = (f"  [{d.id}] {d.device_kind} (platform={d.platform}, "
                 f"process={d.process_index})")
         if mem and "bytes_limit" in mem:
-            line += f", HBM {mem['bytes_limit'] / 2**30:.1f} GiB"
+            line += f", memory limit {mem['bytes_limit'] / 2**30:.1f} GiB"
         print(line)
     from oswald_tpu.utils.compile_cache import cache_stats
     st = cache_stats()

@@ -19,7 +19,7 @@ Two implementations:
   tiny inputs in tests.
 - `sw_score_diag`: an anti-diagonal wavefront `lax.scan` — each scan step
   computes one full anti-diagonal as a vector, so a single long pair runs
-  vectorised on the VPU.  It is `vmap`-batchable over database sequences and
+  vectorised.  It is `vmap`-batchable over database sequences and
   doubles as the long-sequence / single-pair scoring path of the engine.
 """
 
@@ -124,7 +124,7 @@ def sw_score_diag(a, b, n_b, submat, open_gap=10, extend_gap=2):
     Returns the int32 local alignment score.
 
     Scans diagonals d = i + j; each step updates length-m vectors indexed by
-    i, with j = d - i.  This is the TPU-native replacement of the reference's
+    i, with j = d - i.  This replaces the reference's
     FPGA column-block pipeline for the one-pair case.
     """
     return _sw_score_diag_jit(

@@ -1,18 +1,20 @@
-"""Multi-process bootstrap: `jax.distributed` initialization for pod runs.
+"""Multi-process bootstrap: `jax.distributed` initialization.
 
 The reference never crosses a process boundary (its 16 FPGAs hang off one
-host, /root/reference/host/src/FPGAsearch.c:132-239); a TPU pod slice is
-multi-host by construction, so the rebuild needs what the reference never
-did: a distributed runtime bring-up.  This is the one place that touches
-`jax.distributed` — everything downstream (process_group_slice,
+host, /root/reference/host/src/FPGAsearch.c:132-239); a mesh that spans
+hosts needs a distributed runtime bring-up.  This is the one place that
+touches `jax.distributed` — everything downstream (process_group_slice,
 make_array_from_process_local_data in dist/shard.py) only reads
 `jax.process_index()`/`jax.process_count()`.
 
-Usage, per pod host (or per test process):
+One process per host: each process drives all of its host's GPUs (a JAX
+process reserves most of every card it opens, so two processes must not
+share a card; pass `local_device_ids` to split a host's cards between
+processes instead).
 
     from oswald_tpu.dist import bootstrap
-    bootstrap()                      # TPU pod: everything auto-discovered
-    bootstrap("host0:8476", 2, rank) # explicit (tests, bare-metal CPU/GPU)
+    bootstrap()                      # cluster auto-discovery (SLURM, ...)
+    bootstrap("host0:8476", 2, rank) # explicit (tests, bare metal)
 
 then build the mesh/engine exactly as in the single-process case — the
 engine code is process-count-agnostic SPMD.
@@ -33,11 +35,11 @@ def bootstrap(coordinator_address: str | None = None,
               local_device_ids=None) -> tuple[int, int]:
     """Initialize the distributed runtime; returns (process_id, count).
 
-    All-None arguments: on TPU pods `jax.distributed.initialize` discovers
-    the coordinator and process layout from the TPU metadata / cluster
-    environment (GKE, GCE, Cloud TPU); on single-process runs with no
-    cluster environment this call is a no-op (initialize would fail, and a
-    lone process needs no runtime).  Explicit arguments are for bare-metal
+    All-None arguments: `jax.distributed.initialize` discovers the
+    coordinator and process layout from the cluster environment (SLURM,
+    Open MPI, ...); on single-process runs with no cluster environment
+    this call is a no-op (initialize would fail, and a lone process needs
+    no runtime).  Explicit arguments are for bare-metal
     clusters and multi-process tests.  Idempotent: a second call returns
     the existing layout.
     """

@@ -8,7 +8,7 @@ group_block units).  On a small database that rounding dominates: the
 work.  The reference faces the same geometry problem and solves it by
 ADAPTING its chunk size to the device count so the chunk count comes out
 a device multiple (/root/reference/host/src/sequences.c:913-918); the
-TPU-native equivalent is adapting the BIN PARTITION to the mesh:
+equivalent here is adapting the BIN PARTITION to the mesh:
 
 RE-PARTITIONING the sorted group stream (groups are fixed 1024-seq
 blocks of the length-ascending sequence order; only BIN BOUNDARIES and
@@ -35,9 +35,7 @@ PackedDB without copying the (possibly mmap-backed) residue arrays:
 re-cut bins expose a lazy group-sliceable view that column-pads (or
 column-TRUNCATES — trailing columns past a group's true max are all
 DUMMY) each source span on read, so multi-host processes still only
-materialise their own group slice.  The scaling model (dist/model.py)
-runs the same DP per mesh size, which is what makes its efficiency
-projections reflect the engine the driver actually runs.
+materialise their own group slice.
 """
 
 import dataclasses

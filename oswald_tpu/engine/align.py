@@ -4,7 +4,7 @@ The reference is score-only end to end (its report prints score + title,
 /root/reference/host/src/FPGAsearch.c:306-321); a user switching from
 SSEARCH/BLAST-style tools expects to *see* the top alignments.  oswald-tpu
 adds traceback as a host-side post-pass over the k reported hits only — the
-TPU scores all D sequences, the host aligns the handful that get printed, so
+device scores all D sequences, the host aligns the handful that get printed, so
 the O(m*n) traceback matrices exist for <= k small problems and the device
 hot path is untouched.
 
@@ -18,7 +18,7 @@ open+extend >= extend it collapses to the identity
 
 which is a 1-D max-plus prefix scan: E[i][j] = max_k (cur'[i][k] + k*ge)
 - (j-1)*ge, computed with one np.maximum.accumulate per row (the same
-decomposition the Pallas kernel's "fscan" column body uses for F).
+decomposition the kernel's column body uses for F).
 Traceback sources are packed into one uint8[(m+1), (n+1)] flag matrix.
 """
 

@@ -1,18 +1,19 @@
 """Database preprocessing: length-binned, fixed-shape lane packing.
 
-TPU-first replacement of the reference's preprocess + chunk assembly
+The replacement of the reference's preprocess + chunk assembly
 (/root/reference/host/src/sequences.c: preprocess_db :4-220,
 assemble_multiple_chunks_db :393-623).  Differences by design:
 
 - Sequences are length-sorted ascending (same as the reference) and packed
-  into *groups of 1024 lanes* shaped [8, 128] — the VPU sublane x lane grid —
+  into *groups of 1024 lanes* shaped [8, 128] (one GPU thread per lane;
+  the 1024 lanes of one position are contiguous, so loads coalesce)
   instead of 16/32-wide SIMD vector groups.  Lane l of group g holds one
   whole database sequence; padding lanes/positions hold the dummy residue,
   which every matrix scores 0, so they can never change a score.
 - Group lengths are rounded up to LENGTH_QUANTUM (32) and groups with equal
   padded length are stacked into a *bin*: a single [G, L, 8, 128] int8 array.
   Bins give XLA a small, static set of shapes (replacing the reference's
-  dynamic 128 MiB chunking) and stream through the Pallas kernel in
+  dynamic 128 MiB chunking) and stream through the kernel in
   column-chunks of <= 256.
 - The persisted artifact is a directory of .npy arrays + titles + meta.json
   (replacing .desc/.info/.seq).  .npy arrays memory-map, so a multi-host pod

@@ -1,39 +1,45 @@
-"""Inter-sequence Smith-Waterman Pallas kernel (the hot path).
+"""Inter-sequence Smith-Waterman kernel (the hot path), Pallas on Triton.
 
-TPU-native redesign of the reference's scoring engines (the FPGA char16
-pipeline, /root/reference/device/sw.cl:16-94, and the SSE/AVX2 inter-sequence
-kernels, /root/reference/host/src/HybridSearch.c:236-612):
+The reference's scoring engines (the FPGA char16 pipeline,
+/root/reference/device/sw.cl:16-94, and the SSE/AVX2 inter-sequence
+kernels, /root/reference/host/src/HybridSearch.c:236-612) run many database
+sequences side by side, one per SIMD lane.  Here one GPU thread owns one
+database sequence:
 
-- **1024 database sequences per vector step.**  A packed group is an
-  [8, 128] sublane x lane grid; every VPU op advances the same DP cell
-  (i, j) for 1024 independent sequences.  This is the reference's
-  16/32-lane SIMD idea mapped to the native VPU tile.
-- **Exact 32-bit arithmetic everywhere** (fp32 by default, int32 option).
-  The reference's int8/int16 saturating fast paths exist only because SSE
-  lanes are narrow; every saturated lane is rescued with an exact 32-bit
-  recompute, so its *semantics* are exact 32-bit scores.  On TPU the VPU
-  lanes are 32-bit, so we compute the rescued answer directly and the whole
-  overflow-detect/recompute ladder disappears.  fp32 is exact for SW scores
-  (integers bounded by max-diag x length << 2^24) and issues ~10% faster
-  than int32 on the VPU (measured v5e).
-- **Register blocking over U query rows.**  Per column j the kernel keeps
-  H/E of U consecutive query rows in vector registers, loading/storing the
-  H-row and F-column state once per column instead of once per cell
-  (the TPU analog of the reference's `#pragma unroll 10`).
-- **Column chunks with carried boundary state.**  The DP matrix is swept in
-  column chunks of CHUNK_WIDTH db positions; H/E at a chunk's last column
-  are written to HBM and fed to the next chunk's call — the functional
-  equivalent of the FPGA kernel's depth-5478 `lastCols`/`maxRows` channels
-  (sw.cl:9-10,48-54,79-85), with HBM playing the FIFO (traffic is
-  ~0.06 B/cell, noise against compute).
-- **Score profile instead of per-cell gather.**  s(a_i, b_j) for a whole
-  chunk is a precomputed [24, POS, 128] int8 table indexed by query residue
-  (the reference's SSSE3 profile-gather, HybridSearch.c:141-173, built here
-  with an XLA take/one-hot matmul instead of shuffle tricks).
+- **One thread per subject.**  A packed group is an [8, 128] grid of 1024
+  subjects ("lanes"); at one residue position the group's 1024 lanes are
+  contiguous bytes, so a program that owns a [GB, SB, 128] block of lanes
+  (GB groups x SB sublanes x 128 lanes) issues coalesced loads.  Each
+  thread advances its GB*SB lanes in lockstep (independent dependency
+  chains, for instruction-level parallelism).
+- **Exact 32-bit arithmetic** (int32, or float32 which is exact for SW
+  scores far below 2^24).  The reference's int8/int16 saturating fast
+  paths rescue every saturated lane with an exact 32-bit recompute, so
+  their semantics are exact 32-bit scores; computing those directly drops
+  the overflow-detect/recompute ladder.
+- **Register blocking over U query rows.**  Per column j a thread keeps
+  H/E of U consecutive query rows in registers and loads/stores the
+  H-row and F-column state once per column instead of once per cell (the
+  analog of the reference's `#pragma unroll 10`).
+- **Row blocks as a loop inside the program.**  GPU programs carry no
+  state from one grid step to the next, so a program sweeps all of its
+  row blocks itself: a `fori_loop` whose trip count is the traced
+  `n_blocks` (the dummy-row skip is a shorter loop).  The H-row/F-column
+  state between row blocks lives in a per-program slice of a scratch
+  buffer in device memory, which L1/L2 hold.
+- **Column chunks with carried boundary state.**  The DP matrix is swept
+  in column chunks of CHUNK_WIDTH db positions; H/E at a chunk's last
+  column go to device memory and feed the next chunk's call, the
+  functional equivalent of the FPGA kernel's depth-5478 `lastCols`/
+  `maxRows` channels (sw.cl:9-10,48-54,79-85).
+- **Score profile instead of per-cell lookup.**  s(a_i, b_j) for a whole
+  chunk is a precomputed [24, POS, 128] int8 table indexed by query
+  residue (the reference's SSSE3 profile-gather, HybridSearch.c:141-173).
 
-Grid = (G groups, m_pad/U row blocks); row blocks iterate innermost so the
-H-row/F-column VMEM scratch carries across row blocks of one group, and the
-profile block (index depends only on g) stays resident for a whole group.
+The route is Pallas with `backend="triton"`: the recurrence is add/max on
+32-bit registers with no matrix product, so the tensor-core machinery of
+Mosaic GPU buys nothing.  On the CPU the same kernel runs in Pallas
+interpret mode (the tests).
 """
 
 import functools
@@ -41,29 +47,41 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from oswald_tpu.alphabet import ALPHA_SIZE
+from oswald_tpu.io.db import SUBLANES, LANES
 
 CHUNK_WIDTH = 128                 # db positions per chunk
-SUBLANES = 8
-LANES = 128
 POS_PER_CHUNK = CHUNK_WIDTH * SUBLANES   # flattened (j, sublane) rows
 DEFAULT_U_ROWS = 8
-# Columns per fori iteration: the loop is a scheduling barrier while
-# consecutive columns have only a one-row-skew dependency, so unrolling
-# lets Mosaic overlap their chains.  Round-2 kernel lab (U=8 GB=2 fp32,
-# fscan body, G=64): CU 4 -> 264, 8 -> 279, 16 -> 286, 32 -> 285 Gc/s
-# (16 ~ 32); round-4 re-tune + engine-level A/B on the 300k-seq headline:
-# CU 32 beats 16 consistently (tune 229.6 vs 222.3 Gc/s; end-to-end
-# batch 370.9 vs 363.4 GCUPS, single 310.5 vs 304.8) — the 32-residue
-# bin quantum's thinner tail chunks favor the deeper unroll.  Owned by
-# SearchConfig.col_unroll; this is only the default.
-DEFAULT_COL_UNROLL = 32
-# perf-ablation hook (bounds the profile-load cost by replacing loads with
-# a constant); patch the module attribute from an experiment script — no
-# env knobs in the kernel path
-_ABLATE_S = False
+# Columns per loop iteration.  Owned by SearchConfig.col_unroll; this is
+# only the default.  On the H100 (bin G=44, m=512, one 128-column chunk)
+# unrolling slowed the kernel (1: 372, 4: 108-131, 8: 91-125, 16: 85-125
+# Gcells/s) and its Triton compile grew from ~1 s to ~60 s at 16.
+DEFAULT_COL_UNROLL = 1
+# Sublanes of a group per program.  Compiled: 1 gives the most programs
+# per launch (G/group_block * 8), which thin bins need to fill the card's
+# SMs.  Interpreted: the whole group, ~5x fewer interpreter steps.  Lanes
+# are independent, so the launch geometry never changes a score.
+COMPILED_SUBLANE_BLOCK = 1
+INTERPRET_SUBLANE_BLOCK = SUBLANES
+NUM_WARPS = 4
+
+
+def kernel_interpret(platform: str | None = None) -> bool:
+    """The platform seam: how `sw_chunk` runs on this platform (default:
+    the first JAX device's).  "cpu": Pallas interpret mode (the tests);
+    "gpu": the kernel compiled through Triton.  Any other platform has no
+    kernel, and says so instead of silently interpreting."""
+    if platform is None:
+        platform = jax.devices()[0].platform
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise RuntimeError(
+        f"no Smith-Waterman kernel for platform {platform!r}: the kernel "
+        f"is compiled for NVIDIA GPUs and interpreted on the CPU")
 
 
 def build_profile(db_chunk, submat):
@@ -74,28 +92,13 @@ def build_profile(db_chunk, submat):
     returns:  int8[G, 24, W*8, 128] with prof[g, c, j*8+s, l] =
               submat[c, db[g, j, s, l]]
 
-    The (W, 8) dims are flattened so the int8 arrays keep a (>=32, 128)
-    trailing tile — Pallas int8 VMEM wants (32, 128) tiles, and an [..., 8,
-    128] int8 block would waste 4x VMEM.
-
-    Lowering: the 24-entry table lookup is a one-hot int8 matmul
-    (exact — each output sums exactly one submat entry), NOT a gather:
-    XLA's gather lowering for this shape runs at ~10 GB/s of profile
-    output on v5e while the one-hot einsum runs at ~48 GB/s (measured,
-    scripts/gather_lab.py) — 4.9x, worth ~16 ms per chunk in stream mode
-    where this runs inside the scan.  The reference hits the same problem
-    on SSE and solves it the same way in spirit: a shuffle-based parallel
-    table lookup instead of scalar loads
-    (/root/reference/host/src/FPGAsearch.c:143-177).
+    One XLA gather from the 24 x 24 table, exact in int8.
     """
     G, W = db_chunk.shape[:2]
     sm = jnp.asarray(submat, jnp.int8)
-    flat = db_chunk.reshape(G, W * SUBLANES, LANES)
-    oh = (flat[..., None] == jnp.arange(24, dtype=jnp.int8)
-          ).astype(jnp.int8)                  # [G, POS, 128, 24]
-    prof = jnp.einsum("gplk,ck->gcpl", oh, sm,
-                      preferred_element_type=jnp.int32)
-    return prof.astype(jnp.int8)
+    flat = db_chunk.reshape(G, 1, W * SUBLANES, LANES).astype(jnp.int32)
+    return jnp.take(sm, jnp.arange(sm.shape[0], dtype=jnp.int32)
+                    [None, :, None, None] * sm.shape[1] + flat)
 
 
 def noadj_ok(submat, extend_gap: int) -> bool:
@@ -129,37 +132,127 @@ def noadj_ok(submat, extend_gap: int) -> bool:
     return True
 
 
-def _kernel(u_rows, gb, acc_dtype, col_unroll, noadj, bps, has_nb, q_ref,
-            gaps_ref, *refs):
+def _kernel(U, GB, SB, acc_dtype, col_unroll, noadj, bps, has_nb, has_seg,
+            q_ref, gaps_ref, *refs):
     # bps is None in the DYNAMIC segment layout (unequal packed-query
-    # lengths): the segment map rides as an extra scalar-prefetch ref and
-    # row block r belongs to slot seg_ref[r].  bps set = the static
-    # uniform layout (every segment bps row blocks).
-    if has_nb:
-        nb_ref, *refs = refs
-    else:
-        nb_ref = None
-    if bps is None:
-        seg_ref, *refs = refs
-    else:
-        seg_ref = None
+    # lengths): row block r belongs to score slot seg_ref[r].  bps set =
+    # the static uniform layout (every segment bps row blocks).
+    refs = list(refs)
+    nb_ref = refs.pop(0) if has_nb else None
+    seg_ref = refs.pop(0) if has_seg else None
     (prof_ref, colh_ref, colhd_ref, cole_ref, sin_ref, scores_ref,
-     colho_ref, coleo_ref, hrow_ref, fcol_ref) = refs
-    r = pl.program_id(1)
-    U = u_rows
+     colho_ref, coleo_ref, state_ref) = refs
+    # each ref is this program's GB-group block (see sw_chunk's specs)
+    gi = pl.ds(0, GB)
+    s0 = pl.program_id(1) * SB
+    si = pl.ds(s0, SB)
     W = prof_ref.shape[2] // SUBLANES
+    R = colhd_ref.shape[1]
+    S = sin_ref.shape[1]
     eg = gaps_ref[1].astype(acc_dtype)
     oeg = (gaps_ref[0] + gaps_ref[1]).astype(acc_dtype)
+    zero = jnp.zeros((GB, SB, LANES), acc_dtype)
 
-    if nb_ref is None:
-        # no dummy-row skip compiled in: the unconditional body (callers
-        # with exact-multiple query lengths use this variant — the grid
-        # branch costs ~2% even when it never skips, measured v5e)
-        _kernel_body(u_rows, gb, acc_dtype, col_unroll, noadj, bps, q_ref,
-                     gaps_ref, seg_ref, prof_ref, colh_ref, colhd_ref,
-                     cole_ref, sin_ref, scores_ref, colho_ref, coleo_ref,
-                     hrow_ref, fcol_ref, r, U, W, eg, oeg)
-        return
+    # every score slot starts as its input, so slots that no row block
+    # visits (unused packed segments) pass through unchanged
+    for t in range(S):
+        scores_ref[gi, t, si, :] = sin_ref[gi, t, si, :]
+
+    def zero_state(j, c):
+        p = pl.ds(j * SUBLANES + s0, SB)
+        state_ref[gi, 0, p, :] = zero
+        state_ref[gi, 1, p, :] = zero
+        return c
+
+    def row_block(r, score):
+        if seg_ref is None:
+            # lax.div/rem: r >= 0, and jnp's floor-division lowers to a
+            # sign fix-up Triton's lowering rejects
+            seg = jax.lax.div(r, bps)
+            start = jax.lax.rem(r, bps) == 0
+        else:
+            seg = seg_ref[r]
+            start = jnp.logical_or(
+                r == 0, seg != seg_ref[jnp.maximum(r - 1, 0)])
+
+        # first row block of a segment (a packed query): H[-1, :] = 0, F
+        # candidates = 0 (0 is equivalent to -inf here because H = max(0,
+        # ...) >= 0 and gap candidates only decay; same initialisation as
+        # sw.cl:39).  Zeroing at every segment start is what makes packed
+        # segments independent queries: no DP state crosses the boundary.
+        @pl.when(start)
+        def _init():
+            jax.lax.fori_loop(0, W, zero_state, 0)
+
+        score = jnp.where(start, sin_ref[gi, seg, si, :], score)
+        i0 = r * U
+        a = [q_ref[i0 + u] for u in range(U)]
+        # chunk-boundary state from the previous chunk (zeros for chunk 0):
+        #   hl[u]  = H[i0+u, -1]   (colH)
+        #   hprev  = H[i0-1, -1]   (colHd: colH shifted down one row)
+        #   e[u]   = E[i0+u, 0] candidate (colE)
+        e0 = tuple(cole_ref[gi, i0 + u, si, :] for u in range(U))
+        hl0 = tuple(colh_ref[gi, i0 + u, si, :] for u in range(U))
+        carry0 = (colhd_ref[gi, r, si, :], score, e0, hl0)
+
+        # Column body.  Since extend <= open+extend,
+        #   max(f - eg, max(cur', f) - oeg)  ==  max(f - eg, cur' - oeg)
+        # where cur' = max(diag + s, 0, e) is the F-INDEPENDENT part of the
+        # cell, so a column decomposes into
+        #   (1) cur'[u] for all U rows             — independent
+        #   (2) f[u+1] = max(f[u]-eg, cur'[u]-oeg)  — 2-op/row serial scan
+        #   (3) cur = max(cur', f); E/smax/H        — independent
+        # cutting the critical path per column to ~2 ops/row.
+        def one_col(j, carry):
+            hprev, smax, e, hl = carry
+            p = pl.ds(j * SUBLANES + s0, SB)
+            hrow_j = state_ref[gi, 0, p, :]
+            f_in = state_ref[gi, 1, p, :]
+            # diag[u] = H[i0+u-1, j-1]: hprev for u=0, prev column's hl
+            diag = (hprev,) + hl[:U - 1]
+            s = [prof_ref[gi, a[u], p, :].astype(acc_dtype)
+                 for u in range(U)]
+            curp = [jnp.maximum(jnp.maximum(diag[u] + s[u], 0), e[u])
+                    for u in range(U)]
+            c = [curp[u] - oeg for u in range(U)]
+            f = [f_in]
+            for u in range(1, U):
+                f.append(jnp.maximum(f[u - 1] - eg, c[u - 1]))
+            cur = [jnp.maximum(curp[u], f[u]) for u in range(U)]
+            if noadj:
+                # E opens from cur' (reusing c = cur' - oeg): drops F->E
+                # gap corners, which always have an equal-cost E->F twin —
+                # exact for every scoring config (proof in noadj_ok); one
+                # subtract per cell fewer.  The classical branch is kept
+                # as the reference recurrence for A/B verification.
+                e = tuple(jnp.maximum(e[u] - eg, c[u]) for u in range(U))
+            else:
+                e = tuple(jnp.maximum(e[u] - eg, cur[u] - oeg)
+                          for u in range(U))
+            # smax over cur' (not cur) is exact unconditionally: every f
+            # value is max(earlier c[v] - k*eg) or a chunk-carried f_in
+            # with the same provenance, so each f is dominated by an
+            # earlier cur' in the same column (and f_in=0 <= any 0-clamped
+            # cur'), hence max over cur == max over cur'.  This breaks
+            # smax's dependence on the serial F scan.
+            for u in range(U):
+                smax = jnp.maximum(smax, curp[u])
+            state_ref[gi, 0, p, :] = cur[U - 1]
+            state_ref[gi, 1, p, :] = jnp.maximum(f[U - 1] - eg, c[U - 1])
+            return hrow_j, smax, e, tuple(cur)
+
+        def cols(jj, carry):
+            for k in range(col_unroll):
+                carry = one_col(jj * col_unroll + k, carry)
+            return carry
+
+        _, score, e, hl = jax.lax.fori_loop(0, W // col_unroll, cols,
+                                            carry0)
+        for u in range(U):
+            colho_ref[gi, i0 + u, si, :] = hl[u]
+            coleo_ref[gi, i0 + u, si, :] = e[u]
+        scores_ref[gi, seg, si, :] = score
+        return score
 
     # Dummy-row-block skip: row blocks past the query's TRUE length (the
     # quantum padding) are score-inert — a dummy row's F-independent
@@ -167,139 +260,12 @@ def _kernel(u_rows, gb, acc_dtype, col_unroll, noadj, bps, has_nb, q_ref,
     # an earlier real row's candidate in the same column, so smax cannot
     # move — and their carried state feeds only other dummy blocks.  The
     # trip count is a traced scalar, so ONE compiled (m_pad, ...) program
-    # serves every true length in its pad class at true-length compute
-    # cost (a skipped grid step costs only its block DMAs).
-    # skipped blocks do nothing at all: their block indices are clamped to
-    # the last real block (sw_chunk's row_idx), so there is no DMA and no
-    # write-back to poison — real block nb-1's outputs must stay intact,
-    # which is exactly why this branch has no else arm
-    @pl.when(r < nb_ref[0])
-    def _body():
-        _kernel_body(u_rows, gb, acc_dtype, col_unroll, noadj, bps, q_ref,
-                     gaps_ref, seg_ref, prof_ref, colh_ref, colhd_ref,
-                     cole_ref, sin_ref, scores_ref, colho_ref, coleo_ref,
-                     hrow_ref, fcol_ref, r, U, W, eg, oeg)
+    # serves every true length in its pad class at true-length cost.
+    # colH/colE rows past n_blocks*U are left unwritten; only skipped
+    # blocks would ever read them.
+    n = nb_ref[0] if has_nb else R
+    jax.lax.fori_loop(0, n, row_block, zero)
 
-
-def _kernel_body(u_rows, gb, acc_dtype, col_unroll, noadj, bps, q_ref,
-                 gaps_ref, seg_ref, prof_ref, colh_ref, colhd_ref, cole_ref,
-                 sin_ref, scores_ref, colho_ref, coleo_ref, hrow_ref,
-                 fcol_ref, r, U, W, eg, oeg):
-
-    if seg_ref is None:
-        is_seg_start = r % bps == 0
-    else:
-        is_seg_start = jnp.logical_or(
-            r == 0, seg_ref[r] != seg_ref[jnp.maximum(r - 1, 0)])
-
-    @pl.when(is_seg_start)
-    def _init():
-        # first row block of a group OR of a packed-query segment (see
-        # sw_chunk's q_segs): H[-1, :] = 0, F "candidates" = 0 (0 is
-        # equivalent to -inf here because H = max(0, ...) >= 0 and gap
-        # candidates only decay; same initialisation as sw.cl:39).
-        # Zeroing at every segment start is exactly what makes packed
-        # segments independent queries — no DP state crosses the boundary.
-        hrow_ref[...] = jnp.zeros_like(hrow_ref)
-        fcol_ref[...] = jnp.zeros_like(fcol_ref)
-        scores_ref[...] = sin_ref[...]
-
-    i0 = r * U
-    a = [q_ref[i0 + u] for u in range(U)]
-    # gb independent groups advance in lockstep; their interleaved updates
-    # hide the VPU op latency of the per-group F/E dependency chain (the
-    # kernel is latency-bound at gb=1: ~1 vector op/cycle issued against a
-    # ~4/cycle VPU).  Chunk-boundary state from the previous chunk (zeros
-    # for chunk 0):
-    #   hl[g][u] = H[i0+u, -1]        (colH, unshifted)
-    #   hprev[g] = H[i0-1, -1]        (colHd = colH shifted down one row)
-    #   e[g][u]  = E[i0+u, 0] cand.   (colE)
-    zero = jnp.zeros((SUBLANES, LANES), acc_dtype)
-    e0 = tuple(tuple(cole_ref[g, u] for u in range(U)) for g in range(gb))
-    hl0 = tuple(tuple(colh_ref[g, u] for u in range(U)) for g in range(gb))
-    carry0 = (tuple(colhd_ref[g, 0] for g in range(gb)),
-              tuple(zero for _ in range(gb)), e0, hl0)
-
-    # Column body, restructured for instruction-level parallelism ("fscan"
-    # variant; measured v5e G=64: 286 vs 236 Gc/s for the naive serial
-    # interleaving, +21%).  The naive form chains ~4 vector ops per row
-    # (cur -> cand -> f -> next row's cur); but since extend <= open+extend,
-    #   max(f - eg, max(cur', f) - oeg)  ==  max(f - eg, cur' - oeg)
-    # where cur' = max(diag + s, 0, e) is the F-INDEPENDENT part of the
-    # cell.  So the column decomposes into
-    #   (1) cur'[u] for all U rows            — fully parallel
-    #   (2) f[u+1] = max(f[u]-eg, cur'[u]-oeg) — 2-op/row serial scan
-    #   (3) cur = max(cur', f); E/smax/H       — fully parallel
-    # cutting the critical path per column to ~2 ops/row.  (A Kogge-Stone
-    # log-depth variant of (2) measured slower — more total ops than the
-    # latency it saves at U=8; see scripts/kernel_lab.py.)
-    def one_col(j, carry):
-        hprev, smax, e, hl = carry
-        p = j * SUBLANES
-        hrow_j = [hrow_ref[g, pl.ds(p, SUBLANES), :] for g in range(gb)]
-        f_in = [fcol_ref[g, pl.ds(p, SUBLANES), :] for g in range(gb)]
-        smax = list(smax)
-        e = [list(eu) for eu in e]
-        hl = [list(hu) for hu in hl]
-        hprev = list(hprev)
-        for g in range(gb):
-            # diag[u] = H[i0+u-1, j-1]: hprev for u=0, prev column's hl
-            diag = [hprev[g]] + hl[g][:U - 1]
-            if _ABLATE_S:            # perf ablation only: bound load cost
-                s = [jnp.full((SUBLANES, LANES), 2, acc_dtype)
-                     for _ in range(U)]
-            else:
-                s = [prof_ref[g, a[u], pl.ds(p, SUBLANES), :]
-                     .astype(acc_dtype) for u in range(U)]
-            curp = [jnp.maximum(jnp.maximum(diag[u] + s[u], 0), e[g][u])
-                    for u in range(U)]
-            c = [curp[u] - oeg for u in range(U)]
-            f = [f_in[g]]
-            for u in range(1, U):
-                f.append(jnp.maximum(f[u - 1] - eg, c[u - 1]))
-            cur = [jnp.maximum(curp[u], f[u]) for u in range(U)]
-            for u in range(U):
-                if noadj:
-                    # E opens from cur' (reusing c = cur' - oeg): drops
-                    # F->E gap corners, which always have an equal-cost
-                    # E->F twin — exact for every scoring config (proof
-                    # in noadj_ok).  Saves one subtract per cell (~3%
-                    # measured v5e).  The classical branch below is kept
-                    # as the reference recurrence for A/B verification.
-                    e[g][u] = jnp.maximum(e[g][u] - eg, c[u])
-                else:
-                    e[g][u] = jnp.maximum(e[g][u] - eg, cur[u] - oeg)
-                # smax over cur' (not cur) is exact unconditionally: every
-                # f value is max(earlier c[v] - k*eg) or a chunk-carried
-                # f_in with the same provenance, so each f is dominated by
-                # an earlier cur' in the same column (and f_in=0 <= any
-                # 0-clamped cur'), hence max over cur == max over cur'.
-                # Breaks smax's dependence on the serial F scan.
-                smax[g] = jnp.maximum(smax[g], curp[u])
-            hprev[g] = hrow_j[g]
-            hl[g] = cur
-            hrow_ref[g, pl.ds(p, SUBLANES), :] = cur[U - 1]
-            fcol_ref[g, pl.ds(p, SUBLANES), :] = \
-                jnp.maximum(f[U - 1] - eg, c[U - 1])    # F[i0+U, j]
-        return (tuple(hprev), tuple(smax),
-                tuple(tuple(eu) for eu in e),
-                tuple(tuple(hu) for hu in hl))
-
-    # col_unroll columns per fori iteration: the loop is a scheduling
-    # barrier, and consecutive columns only have a one-row-skew dependency,
-    # so unrolling lets the compiler overlap their chains (validated in
-    # sw_chunk; W is always a multiple of col_unroll here)
-    def body(jj, carry):
-        for k in range(col_unroll):
-            carry = one_col(jj * col_unroll + k, carry)
-        return carry
-
-    _, smax, e, hl = jax.lax.fori_loop(0, W // col_unroll, body, carry0)
-    for g in range(gb):
-        scores_ref[g, 0] = jnp.maximum(scores_ref[g, 0], smax[g])
-        for u in range(U):
-            colho_ref[g, u] = hl[g][u]
-            coleo_ref[g, u] = e[g][u]
 
 
 @functools.partial(jax.jit,
@@ -313,7 +279,7 @@ def sw_chunk(q, gaps, prof_chunk, colH, colHd, colE, scores_in,
              q_segs: int = 1, seg_map=None, n_blocks=None):
     """Score one column chunk of the DP matrix for all groups.
 
-    q:          int32[m_pad]               encoded query (scalar-prefetched)
+    q:          int32[m_pad]               encoded query
     gaps:       int32[2]                    (open_gap, extend_gap)
     prof_chunk: int8[G, 24, POS, 128]       score profile (build_profile)
     colH:       acc[G, m_pad, 8, 128]       H at previous chunk's last column
@@ -326,13 +292,12 @@ def sw_chunk(q, gaps, prof_chunk, colH, colHd, colE, scores_in,
 
     q_segs: number of INDEPENDENT queries packed along the row axis (each
     an equal m_pad/q_segs-row segment).  The kernel re-initialises its
-    H-row/F scratch and score slab at every segment start, so the one
-    pallas_call scores q_segs queries while reading each profile block
-    from HBM ONCE — for short queries the profile stream dominates, so
-    packing multiplies arithmetic intensity by q_segs (the batched analog
-    of the reference's per-query kernel loop inside one chunk round,
-    FPGAsearch.c:204-219, which likewise reuses the uploaded chunk).
-    Default layout: equal m_pad/q_segs-row segments.
+    H-row/F state and score slot at every segment start, so one launch
+    scores q_segs queries while reading each profile block once — for
+    short queries the profile stream dominates, so packing multiplies
+    arithmetic intensity by q_segs (the batched analog of the reference's
+    per-query kernel loop inside one chunk round, FPGAsearch.c:204-219,
+    which likewise reuses the uploaded chunk).
 
     seg_map: optional int32[R] (R = m_pad/u_rows row blocks) giving each
     row block's score-slab slot — UNEQUAL segment lengths, so a mixed
@@ -340,14 +305,14 @@ def sw_chunk(q, gaps, prof_chunk, colH, colHd, colE, scores_in,
     general form of the reference's arbitrary-m per-query loop).  Slots
     must be non-decreasing with block index, < q_segs, each slot's blocks
     contiguous; trailing filler blocks may extend the last segment with
-    DUMMY rows (score-inert).  The map is a traced scalar-prefetch
-    operand: every layout with the same (m_pad, q_segs) shares ONE
-    compiled program.  None = the static uniform layout.
+    DUMMY rows (score-inert).  The map is a traced operand: every layout
+    with the same (m_pad, q_segs) shares ONE compiled program.  None = the
+    static uniform layout.  Slots no row block visits return scores_in.
 
-    group_block: independent groups interleaved per kernel step (latency
-    hiding); must divide G.  col_unroll: columns advanced per fori-loop
-    iteration; must divide the chunk's column count (64 or 128, so any
-    power of two <= 64 is always valid).  noadj: relaxed E-update that
+    group_block: groups whose lanes one thread advances in lockstep
+    (independent chains, for instruction-level parallelism); a power of
+    two that divides G.  col_unroll: columns advanced per loop iteration;
+    must divide the chunk's column count.  noadj: relaxed E-update that
     saves one op/cell — exact for every scoring config (see noadj_ok).
 
     n_blocks: optional TRACED row-block trip count (int32 scalar): row
@@ -356,12 +321,11 @@ def sw_chunk(q, gaps, prof_chunk, colH, colHd, colE, scores_in,
     compiled (m_pad, ...) program serves every true query length in its
     pad class at true-length compute cost.  None = all blocks real.  The
     reference's analog: its kernel launches take m verbatim
-    (FPGAsearch.c:204-219) — this recovers that economy under XLA's
-    static shapes.
+    (FPGAsearch.c:204-219).  colH/colE rows of skipped blocks are
+    undefined on return.
     Returns (scores, colH_out, colE_out); scores match scores_in's shape.
     """
-    G = prof_chunk.shape[0]
-    POS = prof_chunk.shape[2]
+    G, _, POS, _ = prof_chunk.shape
     m_pad = q.shape[0]
     W_cols = POS // SUBLANES
     if not (isinstance(col_unroll, int) and col_unroll >= 1 and
@@ -371,109 +335,73 @@ def sw_chunk(q, gaps, prof_chunk, colH, colHd, colE, scores_in,
         raise ValueError(
             f"col_unroll must be a positive divisor of the chunk column "
             f"count {W_cols}, got {col_unroll!r}")
-    assert m_pad % u_rows == 0, (m_pad, u_rows)
-    assert G % group_block == 0, (G, group_block)
-    R = m_pad // u_rows
-    U = u_rows
     GB = group_block
+    if m_pad % u_rows:
+        raise ValueError(f"m_pad {m_pad} is not a multiple of u_rows "
+                         f"{u_rows}")
+    if GB < 1 or GB & (GB - 1) or G % GB:
+        raise ValueError(f"group_block must be a power of two dividing the "
+                         f"{G} groups, got {GB!r}")
+    SB = INTERPRET_SUBLANE_BLOCK if interpret else COMPILED_SUBLANE_BLOCK
+    R = m_pad // u_rows
     squeeze = scores_in.ndim == 3
     if squeeze:
         scores_in = scores_in[:, None]
-    assert scores_in.shape[1] == q_segs, (scores_in.shape, q_segs)
-    # dummy-row-block skip (see _kernel): trip count over the row-block
-    # grid axis.  None compiles the UNCONDITIONAL kernel (no per-step
-    # branch — exact-multiple query lengths pay nothing); an array value
-    # is traced, so every true length in a pad class shares one compiled
-    # skip-variant program.
+    if scores_in.shape[1] != q_segs:
+        raise ValueError(f"scores_in has {scores_in.shape[1]} slots, "
+                         f"q_segs is {q_segs}")
     has_nb = n_blocks is not None
-    nb_ops = (jnp.asarray(n_blocks, jnp.int32).reshape(1),) if has_nb \
-        else ()
-    seg_pos = 2 + len(nb_ops)             # seg_map's scalar-prefetch slot
+    ops = [jnp.asarray(q, jnp.int32), jnp.asarray(gaps, jnp.int32)]
+    if has_nb:
+        ops.append(jnp.asarray(n_blocks, jnp.int32).reshape(1))
+    bps = None
     if seg_map is None:
         if R % q_segs:
             raise ValueError(
                 f"q_segs={q_segs} must divide the {R} row blocks (m_pad "
                 f"{m_pad}, u_rows {u_rows})")
         bps = R // q_segs                 # row blocks per segment
-        seg_idx = lambda g, r, *_: (g, r // bps, 0, 0)
-        prefetch = (jnp.asarray(q, jnp.int32),
-                    jnp.asarray(gaps, jnp.int32)) + nb_ops
     else:
         seg_map = jnp.asarray(seg_map, jnp.int32)
         if seg_map.shape != (R,):
             raise ValueError(
                 f"seg_map must have one slot per row block, expected "
                 f"({R},), got {seg_map.shape}")
-        bps = None                        # dynamic layout: slots from the map
-        seg_idx = lambda g, r, *s: (g, s[seg_pos][r], 0, 0)
-        prefetch = (jnp.asarray(q, jnp.int32),
-                    jnp.asarray(gaps, jnp.int32)) + nb_ops + (seg_map,)
-
-    if has_nb:
-        # skipped row blocks clamp their block index to the last REAL
-        # block: consecutive grid steps revisiting the same block do no
-        # DMA, so a skipped step costs only the grid iteration (the
-        # kernel body is under @pl.when(r < nb) and never touches the
-        # revisited buffers — real block nb-1's outputs stay intact, and
-        # colH/colE rows past nb*U are left unwritten garbage that only
-        # other skipped blocks ever index).
-        row_idx = lambda g, r, *s: (g, jnp.minimum(r, s[2][0] - 1), 0, 0)
-    else:
-        row_idx = lambda g, r, *_: (g, r, 0, 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=len(prefetch),
-        grid=(G // GB, R),
-        in_specs=[
-            pl.BlockSpec((GB, ALPHA_SIZE, POS, LANES),
-                         lambda g, r, *_: (g, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GB, U, SUBLANES, LANES), row_idx,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GB, 1, SUBLANES, LANES), row_idx,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GB, U, SUBLANES, LANES), row_idx,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GB, 1, SUBLANES, LANES), seg_idx,
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((GB, 1, SUBLANES, LANES), seg_idx,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GB, U, SUBLANES, LANES), row_idx,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GB, U, SUBLANES, LANES), row_idx,
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((GB, POS, LANES), acc_dtype),    # H row state
-            pltpu.VMEM((GB, POS, LANES), acc_dtype),    # F column state
-        ],
-    )
+        ops.append(seg_map)
 
     # interpret mode executes the traced body op by op, so unrolling only
-    # slows it down; compiled mode gets the measured +15%
+    # slows it down
     cu = 1 if interpret else col_unroll
-    kernel = functools.partial(_kernel, U, GB, acc_dtype, cu, noadj, bps,
-                               has_nb)
-    cells = G * m_pad * (POS // SUBLANES) * SUBLANES * LANES
-    scores, colH_out, colE_out = pl.pallas_call(
+    kernel = functools.partial(_kernel, u_rows, GB, SB, acc_dtype, cu,
+                               noadj, bps, has_nb, seg_map is not None)
+    cells = G * m_pad * POS * LANES
+    acc = lambda shape: jax.ShapeDtypeStruct(shape, acc_dtype)
+    # Per-program blocks of GB groups: the kernel's IR then never names G,
+    # so every bin with the same (m_pad, POS, q_segs) compiles to the same
+    # kernel.  Scalar operands are passed whole.
+    whole = lambda x: pl.BlockSpec(x.shape, lambda g, s: (0,) * x.ndim)
+    groups = lambda shape: pl.BlockSpec((GB,) + shape[1:],
+                                        lambda g, s: (g, 0, 0, 0))
+    operands = (prof_chunk, colH, colHd, colE, scores_in)
+    out_shapes = [acc((G, q_segs, SUBLANES, LANES)),
+                  acc((G, m_pad, SUBLANES, LANES)),
+                  acc((G, m_pad, SUBLANES, LANES)),
+                  # H-row / F-column state between row blocks, one slice
+                  # per program: [g, 0|1, j*8 + s, lane]
+                  acc((G, 2, POS, LANES))]
+    scores, colH_out, colE_out, _ = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((G, q_segs, SUBLANES, LANES), acc_dtype),
-            jax.ShapeDtypeStruct((G, m_pad, SUBLANES, LANES), acc_dtype),
-            jax.ShapeDtypeStruct((G, m_pad, SUBLANES, LANES), acc_dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            # default scoped-VMEM limit is 16 MiB; the (GB, 24, POS, 128)
-            # profile block double-buffers, so GB > 2 needs the real VMEM
-            # budget (128 MiB on v5e; leave headroom for scratch + blocks)
-            vmem_limit_bytes=100 << 20,
-        ),
+        grid=(G // GB, SUBLANES // SB),
+        in_specs=[whole(x) for x in ops] +
+        [groups(x.shape) for x in operands],
+        out_specs=[groups(o.shape) for o in out_shapes],
+        out_shape=out_shapes,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         cost_estimate=pl.CostEstimate(
-            flops=10 * cells, bytes_accessed=prof_chunk.size, transcendentals=0),
+            flops=10 * cells, bytes_accessed=prof_chunk.size,
+            transcendentals=0),
         interpret=interpret,
-    )(*prefetch, prof_chunk, colH, colHd, colE, scores_in)
+        name="sw_chunk",
+    )(*ops, prof_chunk, colH, colHd, colE, scores_in)
     return (scores[:, 0] if squeeze else scores), colH_out, colE_out

@@ -2,9 +2,9 @@
 
 The reference is strictly one-shot (`main.c:35-67` loads the device
 binary, searches, exits) — every invocation repays device bring-up and
-profile upload.  On TPU those fixed costs are engine construction
-(~2 s at SwissProt scale) plus one XLA compile per (bin, padded-query)
-shape (~20-40 s cold), which dwarf a single millisecond-scale search.
+profile upload.  Here those fixed costs are engine construction plus
+XLA compiles per padded-query shape (tens of seconds cold), which dwarf a
+single millisecond-scale search.
 A production deployment therefore keeps ONE warm engine resident and
 streams queries at it; this module is that deployment shape.
 

@@ -31,7 +31,7 @@ query length grows.  The authoritative truth gate is empirical, not
 constant-matching: tests/test_calibration.py asserts reported E-values
 match OBSERVED chance-hit counts on a realistic corpus.
 
-TPU-native twist: everything the fit needs is three score moments —
+Device-side twist: everything the fit needs is three score moments —
 sum(S), sum(S^2), sum(S * lnL) — which the device piggybacks (float32,
 psum'd across mesh shards) onto the packed top-k readback
 (engine/search.py:_append_moments), so the full score vector never crosses

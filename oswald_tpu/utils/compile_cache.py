@@ -2,53 +2,53 @@
 kernel and loads it at startup — `PRECOMPILED_BINARY`
 (/root/reference/host/src/utils.h:17) via `createProgramFromBinary`
 (/root/reference/common/src/AOCL_Utils.cpp:365, utils.c:144-150) — so a
-deployment never pays FPGA synthesis.  The TPU-native equivalent is JAX's
-persistent compilation cache: every XLA executable the engine compiles
-(per-bin scans, packed-batch rungs, top-k) is written to a directory keyed
-by (HLO, compile options, device kind), and any later process — a serve
-restart, the next bench run, a new pod worker — loads it instead of
-recompiling.  A first-ever warmup costs ~20-40 s per program through a
-remote compile service (measured 22 min for the full default ladder on the
-v5e rig, engine/search.py warmup_engine); with this cache primed the same
-warmup replays in seconds.
+deployment never pays FPGA synthesis.  The equivalent here is JAX's
+persistent compilation cache: every executable the engine compiles
+(per-bin scans with their Triton kernels, packed-batch rungs, top-k) is
+written to a directory keyed by (HLO, compile options, device kind), and
+any later process — a serve restart, the next bench run — loads it
+instead of recompiling.
 
-Enabled by default by every entry point (CLI search/serve/tune, bench.py);
-opt out with --no-compile-cache or OSWALD_TPU_COMPILE_CACHE=0.
+Where the cache lives, first rule that applies:
+  1. JAX_COMPILATION_CACHE_DIR, when set: JAX reads it itself and this
+     module configures no other directory (--compile-cache and
+     --no-compile-cache are ignored);
+  2. the directory given (--compile-cache DIR); --no-compile-cache
+     disables the cache;
+  3. a fixed path inside the checkout, `<repo>/.jax_cache` (JAX's cache
+     key includes the directory, so a fixed path is what lets a later
+     process hit).
+
+Enabled by default by every entry point (CLI search/serve/tune, bench.py).
 """
 
 import os
 import sys
 
-# Resolution order for the default directory (first hit wins):
-#   1. OSWALD_TPU_COMPILE_CACHE env var ("0"/"" disables)
-#   2. JAX_COMPILATION_CACHE_DIR env var (jax's own knob — respected as-is)
-#   3. ~/.cache/oswald-tpu/xla
-_ENV = "OSWALD_TPU_COMPILE_CACHE"
-_DEFAULT_SUBDIR = os.path.join("oswald-tpu", "xla")
+_ENV = "JAX_COMPILATION_CACHE_DIR"
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 _enabled_dir: str | None = None
 
 
 def default_cache_dir() -> str:
-    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(
-        os.path.expanduser("~"), ".cache")
-    return os.path.join(base, _DEFAULT_SUBDIR)
+    """JAX_COMPILATION_CACHE_DIR when set, else `<repo>/.jax_cache`."""
+    return os.environ.get(_ENV) or os.path.join(_REPO, ".jax_cache")
 
 
 def enable_compile_cache(cache_dir: str | None = None,
                          quiet: bool = False) -> str | None:
-    """Point JAX's persistent compilation cache at `cache_dir` (default:
-    see resolution order above).  Idempotent; safe to call before or after
-    jax initialises (config updates apply to subsequent compiles).  Returns
-    the directory in use, or None when disabled (explicitly, via env, or
-    because the config knobs are unavailable in this jax)."""
+    """Turn on JAX's persistent compilation cache (see the module
+    docstring for where it lives).  Idempotent; safe to call before or
+    after jax initialises (config updates apply to subsequent compiles).
+    Returns the directory in use, or None when it cannot be created."""
     global _enabled_dir
     env = os.environ.get(_ENV)
-    if env is not None and env.strip() in ("", "0", "off", "false", "no"):
-        return None
-    if cache_dir is None:
-        cache_dir = (env or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-                     or default_cache_dir())
+    if env:
+        cache_dir = env                   # JAX's own setting; set no other
+    elif cache_dir is None:
+        cache_dir = default_cache_dir()
     if _enabled_dir == cache_dir:
         return _enabled_dir
     try:
@@ -59,19 +59,12 @@ def enable_compile_cache(cache_dir: str | None = None,
                   file=sys.stderr)
         return None
     import jax
-    try:
+    if not env:
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # cache EVERY program: the engine's ladder is many small-to-medium
-        # programs, each 20-40 s through a remote compile service — the
-        # default 1 s floor would skip exactly the programs a local CPU
-        # test compiles fast but a TPU deployment pays dearly for
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception as e:  # unknown flag in a future jax: degrade, don't die
-        if not quiet:
-            print(f"oswald-tpu: compile cache unavailable ({e})",
-                  file=sys.stderr)
-        return None
+    # cache EVERY program: a search compiles many small-to-medium
+    # programs, and the default 1 s floor would skip most of them
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     _enabled_dir = cache_dir
     if not quiet:
         print(f"oswald-tpu: compile cache at {cache_dir}", file=sys.stderr)
@@ -81,14 +74,13 @@ def enable_compile_cache(cache_dir: str | None = None,
 def pack_cache(tar_path: str, cache_dir: str | None = None) -> dict:
     """Archive a warmed compile cache into one gzip tarball — the analog
     of SHIPPING the reference's precompiled `sw.aocx`: a fresh deployment
-    unpacks the artifact and skips the cold warmup ladder entirely
-    (measured on the v5e rig: zero recompiles after unpack; SCALING.md
-    round 5).  IMPORTANT: jax's cache-key fingerprint includes the
-    compilation-cache-dir config, so the artifact must be unpacked into
-    the SAME configured directory path on the target machine (the
-    default ~/.cache/oswald-tpu/xla ships cleanly between machines;
-    unpacking into a different path silently recompiles everything —
-    measured).  Returns {"entries", "bytes", "tar"}."""
+    unpacks the artifact and skips the cold warmup ladder.  JAX's
+    cache-key fingerprint includes the configured cache directory, so
+    unpack into the SAME path on the target machine: the same
+    JAX_COMPILATION_CACHE_DIR, or a checkout at the same location (the
+    default `<repo>/.jax_cache`); anywhere else every program recompiles.
+    Entries are also specific to the device kind and the JAX version.
+    Returns {"entries", "bytes", "tar"}."""
     import tarfile
     d = cache_dir or _enabled_dir or default_cache_dir()
     if not os.path.isdir(d):

@@ -1,6 +1,6 @@
 """Timing, GCUPS accounting, and profiler integration.
 
-TPU-native replacement of the reference's observability surface
+The replacement of the reference's observability surface
 (/root/reference/host/src/utils.c:89-97 `dwalltime`, the GCUPS report at
 FPGAsearch.c:311-331 / HybridSearch.c:1213-1234, and the unused OpenCL
 event profiling helper AOCL_Utils.cpp:495-505):
@@ -10,7 +10,7 @@ event profiling helper AOCL_Utils.cpp:495-505):
   dwalltime() pairs.
 - `gcups`: the reference's throughput metric, Q*D / (t * 1e9) over TRUE
   residues.
-- `profile_trace`: context manager around `jax.profiler.trace` — the TPU
+- `profile_trace`: context manager around `jax.profiler.trace` — the
   analog of CL_QUEUE_PROFILING_ENABLE event timestamps; produces a trace
   viewable in TensorBoard/Perfetto instead of printf timing.
 """

@@ -10,22 +10,27 @@ this script parses the numeric literals out of the reference's submat.c once
 and stores them as a [8, 24, 24] int8 array in oswald_tpu/data/submat.npz.
 
 Dev-time tool only: the produced .npz is committed; nothing at runtime reads
-/root/reference.
+the reference.
+
+Usage: python scripts/extract_submat.py <reference>/host/src/submat.c
 """
 
+import os
 import re
 import sys
 
 import numpy as np
 
-SRC = "/root/reference/host/src/submat.c"
-OUT = "/root/repo/oswald_tpu/data/submat.npz"
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "oswald_tpu", "data", "submat.npz")
 NAMES = ["blosum45", "blosum50", "blosum62", "blosum80", "blosum90",
          "pam30", "pam70", "pam250"]
 
 
 def main():
-    text = open(SRC).read()
+    if len(sys.argv) != 2:
+        sys.exit(__doc__.strip().splitlines()[-1])
+    text = open(sys.argv[1]).read()
     mats = {}
     for name in NAMES:
         m = re.search(r"char\s+%s\s*\[\]\s*__attribute__[^=]*=\s*\{(.*?)\};"

@@ -200,14 +200,17 @@ def test_cli_tabular_output(tmp_path, rng, capsys):
 
 def test_tune_autotune_tiny(monkeypatch, capsys):
     """The autotuner's coordinate descent runs end-to-end (tiny axes,
-    interpret kernel), disqualifies nothing on a healthy device, and
-    returns a valid geometry whose checksum gate held."""
+    interpret kernel, asked for explicitly), disqualifies nothing on a
+    healthy device, and returns a valid geometry whose checksum gate
+    held; without a GPU and without that request it refuses to run."""
     import oswald_tpu.tune as tune
     monkeypatch.setattr(tune, "U_ROWS_AXIS", (8,))
     monkeypatch.setattr(tune, "GROUP_BLOCK_AXIS", (1, 2))
     monkeypatch.setattr(tune, "COL_UNROLL_AXIS", (16,))
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        tune.autotune(m=16, groups=2, chunks=1, iters=1)
     out = tune.autotune(m=16, groups=2, chunks=1, iters=1,
-                        log=lambda s: None)
+                        log=lambda s: None, interpret=True)
     assert out["u_rows"] == 8 and out["col_unroll"] == 16
     assert out["group_block"] in (1, 2)
     assert out["gcells"] > 0

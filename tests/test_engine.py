@@ -213,8 +213,8 @@ def test_engine_warmup(rng):
 
 def test_fused_dispatch_matches_per_bin(rng):
     """fused_dispatch=True (one program: every bin + top-k) must match the
-    per-bin async path exactly — it is auto-selected for short queries on
-    TPU."""
+    per-bin async path exactly — it is auto-selected for single queries
+    in precompute mode on the GPU."""
     db, seqs, lengths = _make_db(rng, 900, 150, bin_cost=1)
     q = random_protein(rng, 33)
     base = SearchEngine(db, SearchConfig(top=9, fused_dispatch=False))

@@ -3,7 +3,7 @@
 The reference streams arbitrarily large databases through the device in
 bounded chunks (/root/reference/host/src/FPGAsearch.c:180-237) and caps the
 chunk size at 0.8x device global memory (utils.c:162-168).  These tests
-force the TPU analog (host-resident mmap bins streamed slice by slice,
+force the analog here (host-resident mmap bins streamed slice by slice,
 planner-selected) on small databases via artificial HBM budgets.
 """
 

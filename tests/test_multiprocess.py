@@ -8,8 +8,9 @@ process_count == 2, and `jax.make_array_from_process_local_data`.
 
 Reference analog: the multi-device scheduler loop
 (/root/reference/host/src/FPGAsearch.c:132-239) — which was still a single
-process; a TPU pod slice is multi-host by construction, so this is the
-capability the reference's design point maps to.
+process; a mesh that spans hosts needs this.  The test stays on the CPU:
+a JAX process reserves most of each card it opens, so two processes on
+one card would not run.
 """
 
 import json
@@ -86,8 +87,8 @@ def test_bootstrap_noarg_single_process_noop():
     """The auto-discovery path must not crash when the XLA backend is
     already initialized and no cluster environment exists — it falls back
     to single-process (regression: probing jax.default_backend() before
-    jax.distributed.initialize() made the no-arg path raise on real TPU
-    hosts)."""
+    jax.distributed.initialize() made the no-arg path raise on hosts with
+    an accelerator)."""
     import jax
     from oswald_tpu.dist import bootstrap, is_bootstrapped
     jax.devices()                     # force backend init, like a real app
